@@ -1,9 +1,9 @@
 // Native HTTP load generator for the RAG service.
 //
-// Why it exists: the sweep host has ONE CPU core shared by the load
-// generator AND the server (PERFORMANCE.md "The ~550 wall attributed").
-// The asyncio generator costs a large fraction of that core at high RPS,
-// so committed ladders measured loadgen+server, not the server. This is a
+// Why it exists: a sweep host may share its CPU cores between the load
+// generator AND the server. The asyncio generator costs a large fraction
+// of a core at high RPS, so a ladder would measure loadgen+server, not the
+// server. This is a
 // single-threaded epoll client whose per-request cost is a few µs, leaving
 // the core to the process under test.
 //

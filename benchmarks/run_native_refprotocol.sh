@@ -1,16 +1,15 @@
 #!/usr/bin/env bash
 # Byte-level reference-protocol ladder against the NATIVE C++ HTTP front at
-# the squad_real b32 serving config (VERDICT r4 next-step #2). Protocol =
+# the squad_real b32 serving config. Protocol =
 # the reference's own load_test.sh: INITIAL=1, STEP=5, 60 s/rung, uniform +
 # random interleaved, p99 >= 10 s gate, seed convention BASE + rung_index
 # (reference benchmarks/load_test.sh:3-13). Client = the C++ load generator
-# (the asyncio client saturates this host's single measurement core near
-# ~700 rps — results_procwall*/ — which would cap the ladder client-side).
+# (the asyncio client can saturate a shared measurement core, which would
+# cap the ladder client-side).
 #
-# Server env = the committed squad_real protocol config
-# (benchmarks/results_squad/summary.json server_env) plus the native front
+# Server env = the squad_real protocol config below plus the native front
 # (NATIVE_FRONT_PORT): POST /rag, result polls and /health are served from
-# the C++ epoll loop off the GIL; aiohttp keeps /stats on PORT.
+# the C++ epoll loop off the GIL; the asyncio server keeps /stats on PORT.
 #
 # Resume-safe: rows append to sweep.csv; re-invoking with FROM=<rung> (and
 # REUSE=1 against the live server) continues the climb. A wall-clock-capped
@@ -18,7 +17,7 @@
 set -u
 cd "$(dirname "$0")/.."
 
-PORT="${PORT:-8041}"           # aiohttp (stats)
+PORT="${PORT:-8041}"           # asyncio server (stats)
 FPORT="${FPORT:-8040}"         # native epoll front (the driven surface)
 FROM="${FROM:-1}"
 TO="${TO:-1200}"
@@ -155,9 +154,8 @@ summary = {
                 "p99>=10 s gate (reference benchmarks/load_test.sh:3-13)",
     "surface": "native C++ epoll front (native/httpfront.cc), C++ load "
                "generator (benchmarks/loadgen_native.cc)",
-    "config": "squad_real b32 protocol config "
-              "(= benchmarks/results_squad/summary.json server_env) + "
-              "NATIVE_FRONT_PORT",
+    "config": "squad_real b32 protocol config (server env in this "
+              "script) + NATIVE_FRONT_PORT",
     "patterns": pats,
 }
 if pats["uniform"]["gate_fired"] and pats["random"]["gate_fired"]:

@@ -1,11 +1,10 @@
 #!/usr/bin/env bash
-# Soak test (VERDICT r4 next-step #5): sustained load at a fixed fraction of
+# Soak test: sustained load at a fixed fraction of
 # the measured wall, tracking the host-RAM structures the 60-second rungs
 # never stress — server RSS, prefix-pool bytes, prompt-token/query caches,
 # miniredis used_memory — plus per-window ok-rps and p99 drift.
 #
-# Run against an ALREADY-RUNNING server (same convention as
-# run_native_wall.sh REUSE=1):
+# Run against an ALREADY-RUNNING server:
 #   SERVER_PID=<pid> RATE=320 WINDOWS=20 WINDOW_S=120 \
 #     ENDPOINT=http://localhost:8010 STATS=http://localhost:8010 \
 #     bash benchmarks/soak.sh
@@ -46,7 +45,7 @@ mini_bytes() {
   [ -n "$MINIREDIS_PORT" ] || { echo -1; return; }
   python - "$MINIREDIS_PORT" <<'PYEOF' 2>/dev/null || echo -1
 import sys
-from rag_serving_system_tpu.utils.resp import RespClient
+from rag_serving_system.utils.resp import RespClient
 c = RespClient("127.0.0.1", int(sys.argv[1]))
 print(c.info().get("used_memory", -1))
 PYEOF

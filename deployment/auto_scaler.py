@@ -132,7 +132,7 @@ def autoscale_loop() -> None:
         import redis
         r = redis.from_url(url)
     except ImportError:  # degrade to the dependency-free RESP client
-        from rag_serving_system_tpu.utils.resp import RespClient
+        from rag_serving_system.utils.resp import RespClient
         r = RespClient.from_url(url)
 
     controller = AutoscaleController(
@@ -153,5 +153,5 @@ def autoscale_loop() -> None:
 
 
 if __name__ == "__main__":
-    print("starting RAG service autoscaler (TPU build)")
+    print("starting RAG service autoscaler")
     autoscale_loop()

@@ -2,7 +2,9 @@
 
 Wires: Settings → data → engine (models + device corpus) → queue backend
 (Redis iff REDIS_URL, reference main.py:35-49) → BatchProcessor thread →
-aiohttp app (api/endpoints.py run_app; optional C++ epoll native front).
+asyncio HTTP app (api/endpoints.py, api/http.py; optional C++ epoll native
+front). One process owns the accelerator; ROLE=api processes never import
+JAX.
 """
 
 from __future__ import annotations
@@ -30,13 +32,14 @@ def build_app(settings=None, warmup: bool = True, role: str = "all"):
       - "api"    — HTTP front only: accepts requests into the shared Redis
                    queue and serves result polls; NO jax, NO model. Run N of
                    these with REUSE_PORT=1 behind one port.
-      - "engine" — queue consumer only: owns the TPU, drains the Redis
-                   queue, stores results. No HTTP surface.
+      - "engine" — queue consumer only: owns the accelerator, drains the
+                   Redis queue, stores results. No HTTP surface.
     api/engine roles require REDIS_URL (the queue is the IPC boundary —
     same wire contract the reference's multi-replica deployment uses)."""
-    from rag_serving_system_tpu.config import get_settings
-    from rag_serving_system_tpu.core.request_queue import make_queue
-    from rag_serving_system_tpu.api.endpoints import create_api
+    from rag_serving_system.backend import configure_xla_flags
+    from rag_serving_system.config import get_settings
+    from rag_serving_system.core.request_queue import make_queue
+    from rag_serving_system.api.endpoints import create_api
 
     import os
 
@@ -53,25 +56,20 @@ def build_app(settings=None, warmup: bool = True, role: str = "all"):
     if role == "engine" and not settings.redis_url:
         raise SystemExit("ROLE=engine requires REDIS_URL (shared queue)")
 
-    from rag_serving_system_tpu.core.engine import RagEngine
-    from rag_serving_system_tpu.core.batch_processor import BatchProcessor
-    from rag_serving_system_tpu.parallel.mesh import make_mesh
+    configure_xla_flags()     # before this process first touches JAX
+    from rag_serving_system.core.engine import RagEngine
+    from rag_serving_system.core.batch_processor import BatchProcessor
+    from rag_serving_system.parallel.mesh import make_mesh
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_CACHE_DIR", "/tmp/jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from rag_serving_system.backend import require_platform, setup_compile_cache
 
+    setup_compile_cache()
     if settings.platform:
-        # must run before any backend is initialized; wins over plugin
-        # force-selection (env JAX_PLATFORMS can be overridden by plugins,
-        # the config update cannot)
-        try:
-            jax.config.update("jax_platforms", settings.platform)
-        except RuntimeError as e:
-            logger.warning("JAX_SERVE_PLATFORM=%s ignored (backend already "
-                           "initialized): %s", settings.platform, e)
+        # fails if the backend is already up on another platform, or the
+        # platform has no device: never serve on a platform not asked for
+        require_platform(settings.platform)
 
     logger.info("loading corpus: %s", settings.document_text_file)
     with open(settings.document_text_file, "r", encoding="utf-8") as f:
@@ -98,7 +96,7 @@ def build_app(settings=None, warmup: bool = True, role: str = "all"):
     logger.info("queue backend: %s", type(request_queue).__name__)
 
     # NATIVE_FRONT_PORT=N adds the C++ epoll listener (native/httpfront.cc):
-    # the hot POST/poll path bypasses aiohttp + the GIL entirely. The queue
+    # the hot POST/poll path bypasses the asyncio server and the GIL. The queue
     # the processor sees is wrapped so front-owned results route back through
     # the native layer.
     front_port = int(os.environ.get("NATIVE_FRONT_PORT", "0"))
@@ -113,7 +111,7 @@ def build_app(settings=None, warmup: bool = True, role: str = "all"):
     if front_port:
         import atexit
 
-        from rag_serving_system_tpu.api.native_front import NativeFront, FrontQueue
+        from rag_serving_system.api.native_front import NativeFront, FrontQueue
 
         # overload protection must carry over to the hot path: an operator
         # who configured MAX_QUEUE_SIZE expects backpressure on BOTH
@@ -126,8 +124,8 @@ def build_app(settings=None, warmup: bool = True, role: str = "all"):
             front = NativeFront(request_queue, port=front_port,
                                 max_inflight=max_inflight).start()
         except RuntimeError as e:
-            # no C++ toolchain / prebuilt .so: serve aiohttp-only rather
-            # than crashloop a pod that could still do useful work
+            # no C++ toolchain / prebuilt .so: serve the asyncio surface
+            # only rather than crashloop a pod that could still do useful work
             logger.warning("native front disabled: %s", e)
         else:
             atexit.register(front.stop)  # join the epoll thread on shutdown
@@ -150,7 +148,7 @@ def main():
     import signal
     import threading
 
-    from rag_serving_system_tpu.api.endpoints import run_app
+    from rag_serving_system.api.endpoints import run_app
 
     role = os.environ.get("ROLE", "all")
     app, processor, _, settings = build_app(role=role)
@@ -166,7 +164,7 @@ def main():
             processor.stop(drain_timeout=float(os.environ.get("DRAIN_TIMEOUT", "30")))
         return
     try:
-        # aiohttp's run_app handles SIGTERM/SIGINT itself and returns
+        # run_app returns on SIGTERM/SIGINT
         run_app(app, host=settings.host, port=settings.port,
                 reuse_port=os.environ.get("REUSE_PORT", "0") in ("1", "true"))
     finally:

@@ -26,14 +26,14 @@ def build_bench_engine(warmup: bool = True):
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_CACHE_DIR", "/tmp/jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from rag_serving_system.backend import setup_compile_cache
+
+    setup_compile_cache()
 
     from bench import build_corpus
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
-    from rag_serving_system_tpu.models.configs import encoder_config_for
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
+    from rag_serving_system.models.configs import encoder_config_for
 
     settings = Settings(
         model_preset="tiny" if mode == "tiny" else "full",

@@ -1,12 +1,11 @@
-"""Prefix-cache THRASH-regime benchmark (VERDICT r2 #3).
+"""Prefix-cache THRASH-regime benchmark.
 
-Round 2's committed cache-on numbers all sat at 95-99% hit rate; the one
-low-hit-rate datapoint (80-88 vs 120 req/s cache-off) predated the
-slot-safety/warmup fixes and was never re-measured. This bench drives the
+Serving benchmarks that cycle a few queries sit at 95-99% prefix-cache hit
+rate; this one measures the low-hit-rate regimes. It drives the
 GENERATION stage with directly-constructed PromptSpec batches — real SQuAD
 contexts, real prompt-length distribution — so the context working set is
 controlled exactly (the HTTP path can't produce 1000 distinct contexts under
-random-init encoder weights; PERFORMANCE.md discloses that collapse).
+random-init encoder weights).
 
 Workloads, each measured cache-ON (adaptive), cache-ON (adaptive off), and
 cache-OFF on the same engine build:
@@ -21,7 +20,7 @@ Prints one JSON line per (workload, cache mode) with batches/s and the
 cache stats, plus a verdict line: cache-on must never lose to cache-off by
 more than the probe overhead in thrash/zero, and must win big in reuse.
 
-Usage (TPU): python scripts/bench_thrash.py [--batches 30] [--working-set 96]
+Usage (GPU): python scripts/bench_thrash.py [--batches 30] [--working-set 96]
 """
 
 from __future__ import annotations
@@ -39,8 +38,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def make_engine(prefix_cache: bool, adaptive: bool, cache_mb: int,
                 contexts, emb):
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     settings = Settings(
         model_preset="full", batch_buckets=[32], max_batch_size=32,
@@ -59,9 +58,9 @@ def make_engine(prefix_cache: bool, adaptive: bool, cache_mb: int,
 def batches_for(engine, workload: str, contexts, n_batches: int,
                 working_set: int, batch: int = 32, offset: int = 0):
     """Yield per-batch prompt lists (PromptSpec when the cache is on)."""
-    from rag_serving_system_tpu.core.engine import (
+    from rag_serving_system.core.engine import (
         DOC_JOIN, PREFIX_TEMPLATE, PROMPT_TEMPLATE)
-    from rag_serving_system_tpu.core.prefix_cache import PromptSpec
+    from rag_serving_system.core.prefix_cache import PromptSpec
 
     def spec(ci: int, qi: int):
         ctx = contexts[ci % len(contexts)]
@@ -135,8 +134,9 @@ def main() -> None:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_CACHE_DIR", "/tmp/jax_cache"))
+    from rag_serving_system.backend import setup_compile_cache
+
+    setup_compile_cache()
     os.environ.setdefault("QUANT_WEIGHTS", "int8")
     os.environ.setdefault("QUANT_ACT", "int8")
 

@@ -1,4 +1,4 @@
-"""Real-checkpoint bring-up runbook (VERDICT r2 #7): one command that takes
+"""Real-checkpoint bring-up runbook: one command that takes
 local HF snapshots of the serving models to a VERIFIED serving engine.
 
 Given WEIGHTS_DIR containing snapshots of the encoder
@@ -70,23 +70,14 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_CACHE_DIR", "/tmp/jax_cache"))
-    # honor an explicit JAX_PLATFORMS=cpu even under device plugins that
-    # force-select themselves (env alone loses to the plugin; the config
-    # update wins) — without this, CI runs of the runbook hang whenever the
-    # accelerator is unreachable
-    want = os.environ.get("JAX_PLATFORMS", "")
-    if want and "cpu" in want.split(","):
-        try:
-            jax.config.update("jax_platforms", want)
-        except RuntimeError:
-            pass
+    from rag_serving_system.backend import setup_compile_cache
 
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import QUERY_PREFIX, RagEngine
-    from rag_serving_system_tpu.models.e5 import encode
-    from rag_serving_system_tpu.models.tokenizer import pad_and_stack
+    setup_compile_cache()
+
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import QUERY_PREFIX, RagEngine
+    from rag_serving_system.models.e5 import encode
+    from rag_serving_system.models.tokenizer import pad_and_stack
 
     # ---- real SQuAD artifacts (repo-local import; see data/README.md) ----
     data_dir = os.path.join(REPO, "data")
@@ -112,14 +103,14 @@ def main() -> int:
     t0 = time.time()
     engine = RagEngine(settings, contexts, ref_emb)
     log(f"engine up in {time.time() - t0:.1f}s")
-    from rag_serving_system_tpu.models.weights import find_snapshot
+    from rag_serving_system.models.weights import find_snapshot
     for name in (settings.embed_model_name, settings.llm_model_name):
         snap = find_snapshot(args.weights_dir, name)
         if not snap:
             log(f"FATAL: no snapshot for {name} under {args.weights_dir}")
             return 2
         log(f"snapshot ok: {name} -> {snap}")
-    from rag_serving_system_tpu.models.tokenizer import HashTokenizer
+    from rag_serving_system.models.tokenizer import HashTokenizer
     if isinstance(engine.enc_tok, HashTokenizer) or isinstance(
             engine.dec_tok, HashTokenizer):
         log("FATAL: engine fell back to HashTokenizer — weights/tokenizer "

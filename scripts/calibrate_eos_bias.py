@@ -2,7 +2,7 @@
 model (random init, sampling on — the serving default). The Poisson A/B
 (scripts/server_budget_poisson_ab.sh) needs bias values whose mean lengths
 land around mnt/8, mnt/4, mnt/2 to map the pool-vs-fixed crossover against
-length VARIANCE (VERDICT r4 next-step #3).
+length VARIANCE.
 
 Usage: BATCH=32 PROMPT=512 MNT=64 BIASES=2,4,6,8,10 python scripts/calibrate_eos_bias.py
 One JSON line per bias: mean/std/min/max completion length.
@@ -20,13 +20,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_CACHE_DIR", "/tmp/jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from rag_serving_system.backend import setup_compile_cache
 
-from rag_serving_system_tpu.models.configs import QWEN25_15B, QWEN2_TINY
-from rag_serving_system_tpu.models.qwen2 import generate
-from rag_serving_system_tpu.models.weights import init_decoder_params
+setup_compile_cache()
+
+from rag_serving_system.models.configs import QWEN25_15B, QWEN2_TINY
+from rag_serving_system.models.qwen2 import generate
+from rag_serving_system.models.weights import init_decoder_params
 
 BATCH = int(os.environ.get("BATCH", "32"))
 PROMPT = int(os.environ.get("PROMPT", "512"))
@@ -40,7 +40,7 @@ def main() -> None:
     dtype = jnp.float32 if TINY else jnp.bfloat16
     params = init_decoder_params(cfg, dtype=dtype)
     if os.environ.get("QUANT", "int8") == "int8" and not TINY:
-        from rag_serving_system_tpu.ops.quant import quantize_decoder_params
+        from rag_serving_system.ops.quant import quantize_decoder_params
         params = quantize_decoder_params(params, bits=8)
     rng = np.random.default_rng(0)
     ids = jnp.asarray(rng.integers(10, cfg.vocab_size - 10, (BATCH, PROMPT)),

@@ -8,7 +8,7 @@ retrieves top-k against the corpus embeddings, and reports recall@{1,k}.
 
 Usage:
   python scripts/evaluate_recall.py [--pairs data/short_facts_pairs.json]
-      [--embeddings data/short_facts_embeddings.npy] [--k 5] [--retriever tpu|sharded|simple]
+      [--embeddings data/short_facts_embeddings.npy] [--k 5] [--retriever exact|sharded|simple]
 """
 
 from __future__ import annotations
@@ -28,19 +28,19 @@ def main() -> None:
     p.add_argument("--pairs", default="data/short_facts_pairs.json")
     p.add_argument("--embeddings", default="data/short_facts_embeddings.npy")
     p.add_argument("--k", type=int, default=5)
-    p.add_argument("--retriever", default="tpu", choices=["tpu", "sharded", "simple"])
+    p.add_argument("--retriever", default="exact", choices=["exact", "sharded", "simple"])
     p.add_argument("--batch-size", type=int, default=32)
     args = p.parse_args()
 
     import jax.numpy as jnp
 
-    from rag_serving_system_tpu.config import get_settings
-    from rag_serving_system_tpu.core.retriever import (
-        ShardedRetriever, SimpleRetriever, TpuRetriever)
-    from rag_serving_system_tpu.models import encoder_config_for
-    from rag_serving_system_tpu.models.e5 import encode
-    from rag_serving_system_tpu.models.tokenizer import HashTokenizer, get_tokenizer
-    from rag_serving_system_tpu.models.weights import get_encoder_params
+    from rag_serving_system.config import get_settings
+    from rag_serving_system.core.retriever import (
+        ShardedRetriever, SimpleRetriever, ExactRetriever)
+    from rag_serving_system.models import encoder_config_for
+    from rag_serving_system.models.e5 import encode
+    from rag_serving_system.models.tokenizer import HashTokenizer, get_tokenizer
+    from rag_serving_system.models.weights import get_encoder_params
 
     with open(args.pairs) as f:
         pairs = json.load(f)
@@ -55,7 +55,7 @@ def main() -> None:
     tok = (get_tokenizer(settings.embed_model_name, cfg.vocab_size) if real
            else HashTokenizer(cfg.vocab_size, pad_id=cfg.pad_token_id))
 
-    cls = {"tpu": TpuRetriever, "sharded": ShardedRetriever,
+    cls = {"exact": ExactRetriever, "sharded": ShardedRetriever,
            "simple": SimpleRetriever}[args.retriever]
     retriever = (cls(corpus_emb, docs) if cls is SimpleRetriever
                  else cls(corpus_emb, docs, max_k=args.k))

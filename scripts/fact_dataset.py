@@ -136,11 +136,11 @@ def get_passage_embeddings(texts, batch_size: int = 32) -> np.ndarray:
     L2-normalize (reference: scripts/fact_dataset.py:185-207)."""
     import jax.numpy as jnp
 
-    from rag_serving_system_tpu.config import get_settings
-    from rag_serving_system_tpu.models import encoder_config_for
-    from rag_serving_system_tpu.models.e5 import encode
-    from rag_serving_system_tpu.models.tokenizer import get_tokenizer, HashTokenizer
-    from rag_serving_system_tpu.models.weights import get_encoder_params
+    from rag_serving_system.config import get_settings
+    from rag_serving_system.models import encoder_config_for
+    from rag_serving_system.models.e5 import encode
+    from rag_serving_system.models.tokenizer import get_tokenizer, HashTokenizer
+    from rag_serving_system.models.weights import get_encoder_params
 
     settings = get_settings()
     cfg = encoder_config_for(settings.model_preset)

@@ -16,45 +16,46 @@ Usage: python scripts/null_server.py [port]     (default 8009)
 
 from __future__ import annotations
 
-import asyncio
 import itertools
+import os
 import sys
 
-from aiohttp import web
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from rag_serving_system.api.http import App, json_response, run_app  # noqa: E402
 
 _counter = itertools.count()
 _seen: set[str] = set()
 
 
-async def rag(request: web.Request) -> web.Response:
-    await request.json()
+async def rag(request):
+    request.json()
     rid = f"null-{next(_counter)}"
-    return web.json_response({"request_id": rid, "status": "processing"})
+    return json_response({"request_id": rid, "status": "processing"})
 
 
-async def result(request: web.Request) -> web.Response:
+async def result(request):
     rid = request.match_info["request_id"]
     if rid not in _seen:
         # first poll: still processing (forces one real poll round-trip,
         # like a sub-poll-interval batch completion would)
         _seen.add(rid)
-        return web.json_response({"status": "processing"})
+        return json_response({"status": "processing"})
     _seen.discard(rid)
-    return web.json_response({"status": "complete",
-                              "result": {"result": "null"}})
+    return json_response({"status": "complete", "result": {"result": "null"}})
 
 
-async def health(_: web.Request) -> web.Response:
-    return web.json_response({"status": "healthy"})
+async def health(_):
+    return json_response({"status": "healthy"})
 
 
 def main() -> None:
     port = int(sys.argv[1]) if len(sys.argv) > 1 else 8009
-    app = web.Application()
-    app.router.add_post("/rag", rag)
-    app.router.add_get("/rag/result/{request_id}", result)
-    app.router.add_get("/health", health)
-    web.run_app(app, host="0.0.0.0", port=port, print=None, access_log=None)
+    app = App()
+    app.add_post("/rag", rag)
+    app.add_get("/rag/result/{request_id}", result)
+    app.add_get("/health", health)
+    run_app(app, host="0.0.0.0", port=port)
 
 
 if __name__ == "__main__":

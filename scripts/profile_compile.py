@@ -1,12 +1,12 @@
-"""Cold-start compile-time decomposition (VERDICT r2 #1).
+"""Cold-start compile-time decomposition.
 
 Times each XLA program the serving engine compiles on its cold path,
 separately, against a FRESH compilation cache — so the wall-clock budget of
 "first batch" can be attributed per program instead of guessed.
 
 Usage:
-  JAX_CACHE_DIR=/tmp/jax_cache_profile python scripts/profile_compile.py
-  (delete the cache dir first for a true cold measurement)
+  python scripts/profile_compile.py            (cold: no persistent cache)
+  JAX_COMPILATION_CACHE_DIR=DIR python scripts/profile_compile.py   (warm)
 
 Prints one JSON line per program: {"program", "compile_s", "n_hlo_chars"}.
 """
@@ -25,15 +25,13 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    cache = os.environ.get("JAX_CACHE_DIR")
-    if cache:
-        jax.config.update("jax_compilation_cache_dir", cache)
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-    from rag_serving_system_tpu.models.configs import (
+    from rag_serving_system.models.configs import (
         QWEN25_15B, encoder_config_for)
-    from rag_serving_system_tpu.models.qwen2 import compute_prefix_kv, generate
-    from rag_serving_system_tpu.models.weights import (
+    from rag_serving_system.models.qwen2 import compute_prefix_kv, generate
+    from rag_serving_system.models.weights import (
         init_decoder_params, init_encoder_params)
 
     dec_cfg = QWEN25_15B
@@ -55,13 +53,13 @@ def main() -> None:
     enc_params = timed("init_encoder_params(e5-large)",
                        lambda: init_encoder_params(enc_cfg, dtype=jnp.bfloat16))
 
-    from rag_serving_system_tpu.ops.quant import quantize_decoder_params
+    from rag_serving_system.ops.quant import quantize_decoder_params
     dec_params = timed("quantize_decoder_params(int8)",
                        lambda: jax.block_until_ready(
                            quantize_decoder_params(dec_params)))
 
     # --- stage 1: fused encode+retrieve (engine._encode_retrieve_compiled) ---
-    from rag_serving_system_tpu.core.engine import _encode_retrieve_compiled
+    from rag_serving_system.core.engine import _encode_retrieve_compiled
     corpus = jnp.zeros((100, enc_cfg.hidden_size), jnp.float32)
     ids = jnp.zeros((b, 32), jnp.int32)
     mask = jnp.ones((b, 32), jnp.int32)

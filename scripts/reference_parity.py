@@ -1,20 +1,20 @@
-"""Retrieval parity against the reference's REAL SQuAD e5 embeddings.
+"""Retrieval parity on the REAL SQuAD e5 embeddings (data/squad_real_*).
 
 BASELINE.md's north star requires recall@5 on SQuAD matching the reference
 exactly — both systems do exact search, so on identical embeddings the top-k
 index sets must be identical. Retrieval is embedding-in/indices-out, so this
-parity check needs no model weights at all: we load the reference's shipped
-artifacts READ-ONLY (real multilingual-e5-large passage embeddings,
-reference: data/squad_embeddings.npy (1000, 1024) f32 L2-normalized, built by
-reference scripts/squad_dataset.py:104-131) and compare four stacks on the
-same queries:
+parity check needs no model weights at all: it loads the repo's copy of the
+reference's published artifacts (real multilingual-e5-large passage
+embeddings, (1000, 1024) f32 L2-normalized, built by the reference's
+scripts/squad_dataset.py:104-131) and compares four stacks on the same
+queries:
 
   1. `reference_cosine_topk` — an independent numpy implementation of the
      reference CuPy retriever's MATH (reference retriever.py:594-611:
      sims = X @ Y.T / (||X||·||Y||^T + 1e-8), clipped to [-1, 1]; then
      per-row argpartition + descending argsort, retriever.py:750-769);
   2. our jnp oracle (`cosine_topk_reference`);
-  3. the fused Pallas kernel (`cosine_topk_pallas`, interpret mode off-TPU);
+  3. the serving path (`cosine_topk`: GEMM + lax.top_k on the device);
   4. the mesh-sharded path (`sharded_cosine_topk`, 8 virtual devices).
 
 Queries: (a) the passages themselves — self-retrieval on an exact index must
@@ -22,7 +22,7 @@ give recall@1 == 1.0; (b) noise-perturbed passages at several SNRs — a
 realistic neighborhood structure on the true e5 geometry (clustered, not
 Gaussian) where near-ties actually occur.
 
-Usage: python scripts/reference_parity.py [--ref-data /root/reference/data]
+Usage: python scripts/reference_parity.py [--ref-data DIR]
 Prints a JSON report; exits non-zero on any index-set mismatch.
 """
 
@@ -54,20 +54,17 @@ def reference_cosine_topk(corpus: np.ndarray, queries: np.ndarray, k: int):
 
 
 def run_parity(ref_data: str, n_queries: int = 128, k: int = 5,
-               seed: int = 42, use_interpret: bool | None = None) -> dict:
+               seed: int = 42) -> dict:
     import jax
     import jax.numpy as jnp
 
-    from rag_serving_system_tpu.ops.topk import (
-        cosine_topk_pallas, cosine_topk_reference)
+    from rag_serving_system.ops.topk import cosine_topk, cosine_topk_reference
 
     pref = ("squad_real" if os.path.exists(
         os.path.join(ref_data, "squad_real_embeddings.npy")) else "squad")
     corpus = np.load(os.path.join(ref_data, pref + "_embeddings.npy"))
     assert corpus.shape[1] == 1024, corpus.shape
     n = corpus.shape[0]
-    on_tpu = jax.default_backend() == "tpu"
-    interpret = (not on_tpu) if use_interpret is None else use_interpret
 
     rng = np.random.default_rng(seed)
     sel = rng.choice(n, size=n_queries, replace=False)
@@ -82,15 +79,15 @@ def run_parity(ref_data: str, n_queries: int = 128, k: int = 5,
         jq = jnp.asarray(queries)
         jc = jnp.asarray(corpus)
         _, our_idx = cosine_topk_reference(jc, jq, k)
-        _, pl_idx = cosine_topk_pallas(jc, jq, k, interpret=interpret)
-        our_idx, pl_idx = np.asarray(our_idx), np.asarray(pl_idx)
+        _, sv_idx = cosine_topk(jc, jq, k)
+        our_idx, sv_idx = np.asarray(our_idx), np.asarray(sv_idx)
         case = {
             "oracle_vs_reference_identical": bool((our_idx == ref_idx).all()),
-            "pallas_vs_reference_identical": bool((pl_idx == ref_idx).all()),
+            "serving_vs_reference_identical": bool((sv_idx == ref_idx).all()),
         }
         if len(jax.devices()) >= 8:
             from jax.sharding import Mesh
-            from rag_serving_system_tpu.parallel.sharded_topk import (
+            from rag_serving_system.parallel.sharded_topk import (
                 shard_corpus, sharded_cosine_topk)
             mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(4, 2),
                         axis_names=("data", "model"))
@@ -126,12 +123,7 @@ def main() -> None:
     p = argparse.ArgumentParser()
     repo_data = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "data")
-    # repo-local import of the genuine SQuAD artifacts (data/README.md)
-    # preferred; a reference checkout works too
-    default_data = (repo_data if os.path.exists(
-        os.path.join(repo_data, "squad_real_embeddings.npy"))
-        else "/root/reference/data")
-    p.add_argument("--ref-data", default=default_data)
+    p.add_argument("--ref-data", default=repo_data)
     p.add_argument("--n-queries", type=int, default=128)
     p.add_argument("--k", type=int, default=5)
     args = p.parse_args()

@@ -1,7 +1,7 @@
 """Train a genuine byte-level BPE tokenizer on the shipped corpus.
 
-Why this exists (VERDICT r3 #3): every committed host-path number was
-measured under the HashTokenizer fallback, whose per-prompt cost (blake2b
+Why this exists: host-path numbers measured under the HashTokenizer
+fallback understate tokenization cost, whose per-prompt cost (blake2b
 over whitespace splits) is far below real BPE merges. The actual serving
 models' tokenizers (reference: main.py:26-31, AutoTokenizer for
 multilingual-e5 + Qwen2.5) cannot be downloaded in this environment — so we

@@ -17,9 +17,9 @@ import time
 import pytest
 
 from deployment.auto_scaler import AutoscaleController, ScalerConfig
-from rag_serving_system_tpu.core.request_queue import RedisRequestQueue
-from rag_serving_system_tpu.native import get_miniredis_path
-from rag_serving_system_tpu.utils.resp import RespClient
+from rag_serving_system.core.request_queue import RedisRequestQueue
+from rag_serving_system.native import get_miniredis_path
+from rag_serving_system.utils.resp import RespClient
 
 QUEUE_KEY = "rag_service:requests"
 

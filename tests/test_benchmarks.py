@@ -100,9 +100,9 @@ def native_loadgen(tmp_path_factory):
 def stub_rag_server():
     """Real serving stack over a stub engine: the full queue→processor→API
     loop, so the native client exercises POST + poll + result consumption."""
-    from rag_serving_system_tpu.api.endpoints import ServerThread, create_api
-    from rag_serving_system_tpu.core.batch_processor import BatchProcessor
-    from rag_serving_system_tpu.core.request_queue import RequestQueue
+    from rag_serving_system.api.endpoints import ServerThread, create_api
+    from rag_serving_system.core.batch_processor import BatchProcessor
+    from rag_serving_system.core.request_queue import RequestQueue
 
     class _Stub:
         def prepare(self, queries, ks, budgets=None):
@@ -161,21 +161,19 @@ def test_native_loadgen_counts_timeouts_as_failures(native_loadgen, tmp_path):
     import json
     import subprocess
 
-    from aiohttp import web
+    from rag_serving_system.api.http import App, ServerThread, json_response
 
-    from rag_serving_system_tpu.api.endpoints import ServerThread
-
-    app = web.Application()
+    app = App()
 
     async def rag(request):
-        await request.json()
-        return web.json_response({"request_id": "r1", "status": "processing"})
+        request.json()
+        return json_response({"request_id": "r1", "status": "processing"})
 
     async def result(request):
-        return web.json_response({"status": "processing"})
+        return json_response({"status": "processing"})
 
-    app.router.add_post("/rag", rag)
-    app.router.add_get("/rag/result/{rid}", result)
+    app.add_post("/rag", rag)
+    app.add_get("/rag/result/{rid}", result)
     server = ServerThread(app).start()
     try:
         qfile = tmp_path / "queries.json"
@@ -301,9 +299,9 @@ def test_loadgen_budget_spread_reaches_engine(native_loadgen, tmp_path):
     import json
     import subprocess
 
-    from rag_serving_system_tpu.api.endpoints import ServerThread, create_api
-    from rag_serving_system_tpu.core.batch_processor import BatchProcessor
-    from rag_serving_system_tpu.core.request_queue import RequestQueue
+    from rag_serving_system.api.endpoints import ServerThread, create_api
+    from rag_serving_system.core.batch_processor import BatchProcessor
+    from rag_serving_system.core.request_queue import RequestQueue
     from benchmarks.load_generator import run_load_test
 
     seen: list = []

@@ -16,13 +16,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.config import Settings
-from rag_serving_system_tpu.core.decode_pool import DecodePool, _insert_rows
-from rag_serving_system_tpu.core.engine import RagEngine
-from rag_serving_system_tpu.models.configs import decoder_config_for
-from rag_serving_system_tpu.models.qwen2 import (decode_chunk, eos_id_set,
-                                                 generate, prefill_for_pool)
-from rag_serving_system_tpu.models.weights import init_decoder_params
+from rag_serving_system.config import Settings
+from rag_serving_system.core.decode_pool import DecodePool, _insert_rows
+from rag_serving_system.core.engine import RagEngine
+from rag_serving_system.models.configs import decoder_config_for
+from rag_serving_system.models.qwen2 import (decode_chunk, eos_id_set,
+                                             generate, prefill_for_pool)
+from rag_serving_system.models.weights import init_decoder_params
 
 
 def _left_pad(rows, p):
@@ -298,7 +298,7 @@ def test_pool_packed_staging_matches_fixed(corpus):
     """Packed (ragged) prefill feeding the pool: same answers as fixed."""
     eng_c = _engine(corpus, "continuous", packed_prefill=True)
     eng_f = _engine(corpus, "fixed", packed_prefill=False)
-    import rag_serving_system_tpu.core.engine as eng_mod
+    import rag_serving_system.core.engine as eng_mod
     old = eng_mod.PACKED_MARGIN
     try:
         eng_mod.PACKED_MARGIN = 10.0   # force the packed trace
@@ -313,7 +313,7 @@ def test_pool_packed_staging_matches_fixed(corpus):
 def test_pool_sharded_over_mesh_matches_fixed(corpus):
     """Continuous mode under a dp×tp mesh: the pool's slot axis shards over
     "data"; greedy answers must match the single-device fixed path."""
-    from rag_serving_system_tpu.parallel.mesh import make_mesh
+    from rag_serving_system.parallel.mesh import make_mesh
 
     docs, emb = corpus
     assert len(jax.devices()) == 8
@@ -335,8 +335,8 @@ def test_pool_sharded_over_mesh_matches_fixed(corpus):
 def test_pool_through_batch_processor(corpus):
     """BatchProcessor routes stage-2 to the pool in continuous mode; results
     land in the request queue per request."""
-    from rag_serving_system_tpu.core.batch_processor import BatchProcessor
-    from rag_serving_system_tpu.core.request_queue import RequestQueue
+    from rag_serving_system.core.batch_processor import BatchProcessor
+    from rag_serving_system.core.request_queue import RequestQueue
 
     eng = _engine(corpus, "continuous")
     q = RequestQueue(max_batch_size=4, max_wait_time=0.05)

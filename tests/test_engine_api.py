@@ -1,8 +1,8 @@
-"""Integration tests: RagEngine pipeline + FastAPI surface (tiny models, CPU).
+"""Integration tests: RagEngine pipeline + HTTP surface (tiny models, CPU).
 
 Plays the role the reference delegates entirely to live load-testing
 (SURVEY §4): here the full queue→processor→engine→result loop runs in-process
-with FastAPI's TestClient."""
+behind a live asyncio HTTP server."""
 
 import time
 
@@ -10,15 +10,15 @@ import numpy as np
 import pytest
 import requests
 
-from rag_serving_system_tpu.config import Settings
-from rag_serving_system_tpu.core.engine import RagEngine, pick_bucket
-from rag_serving_system_tpu.core.batch_processor import BatchProcessor
-from rag_serving_system_tpu.core.request_queue import RequestQueue
-from rag_serving_system_tpu.api.endpoints import create_api, ServerThread
+from rag_serving_system.config import Settings
+from rag_serving_system.core.engine import RagEngine, pick_bucket
+from rag_serving_system.core.batch_processor import BatchProcessor
+from rag_serving_system.core.request_queue import RequestQueue
+from rag_serving_system.api.endpoints import create_api, ServerThread
 
 
 class _Client:
-    """requests-backed client against a live aiohttp server."""
+    """requests-backed client against a live HTTP server."""
 
     def __init__(self, base_url):
         self.base = base_url
@@ -77,7 +77,7 @@ def test_engine_huge_k_is_clamped_not_compiled(engine):
 
 def test_prompt_truncation_keeps_tail():
     """Over-long prompts must keep the question/answer cue at the END."""
-    from rag_serving_system_tpu.models.tokenizer import HashTokenizer, pad_and_stack
+    from rag_serving_system.models.tokenizer import HashTokenizer, pad_and_stack
 
     tok = HashTokenizer(1000)
     long_prompt = ("filler " * 100) + "QUESTION_MARKER"
@@ -214,8 +214,8 @@ def test_failed_batch_fans_out_errors(engine):
 def test_batch_buckets_cover_max_batch_size():
     """MAX_BATCH_SIZE beyond the largest bucket must be auto-covered so the
     engine never runs unbucketed shapes (one XLA compile per distinct size)."""
-    from rag_serving_system_tpu.core.engine import _batch_buckets, pick_bucket
-    from rag_serving_system_tpu.config import Settings
+    from rag_serving_system.core.engine import _batch_buckets, pick_bucket
+    from rag_serving_system.config import Settings
 
     s = Settings(model_preset="tiny", batch_buckets=[1, 4], max_batch_size=9)
     buckets = _batch_buckets(s)
@@ -298,7 +298,7 @@ def test_warmup_matrix_covers_every_suffix_bucket():
     every SUFFIX_LEN_BUCKETS entry (32 and 64) — short questions land in the
     32 bucket, and a bucket missing from the matrix compiles serially during
     the sanity batches (dead cold-start time) or, worse, mid-serving."""
-    from rag_serving_system_tpu.core.engine import SUFFIX_LEN_BUCKETS
+    from rag_serving_system.core.engine import SUFFIX_LEN_BUCKETS
 
     rng = np.random.default_rng(0)
     docs = [f"Doc {i} " + " ".join(f"w{i}t{j}" for j in range(20))
@@ -319,7 +319,7 @@ def test_role_split_api_and_engine_processes(tmp_path):
     import json
 
     import main as main_mod
-    from rag_serving_system_tpu.core import request_queue as rq_mod
+    from rag_serving_system.core import request_queue as rq_mod
 
     # tiny corpus files for the engine role (which loads from settings paths)
     rng = np.random.default_rng(0)
@@ -579,7 +579,7 @@ def test_locked_lru_semantics():
     concurrent put/get never corrupts the map."""
     import threading
 
-    from rag_serving_system_tpu.utils.lru import LockedLRU
+    from rag_serving_system.utils.lru import LockedLRU
 
     lru = LockedLRU(2)
     lru.put("a", 1)
@@ -630,7 +630,7 @@ def test_warmup_jobs_retry_resource_exhausted_serially():
     def flaky():
         state["n"] += 1
         if state["n"] == 1:
-            raise _Exhausted("TPU backend error (ResourceExhausted): "
+            raise _Exhausted("backend error (ResourceExhausted): "
                              "RESOURCE_EXHAUSTED while allocating")
         calls.append("flaky-retry")
 

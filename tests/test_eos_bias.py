@@ -16,9 +16,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.models.configs import QWEN2_TINY
-from rag_serving_system_tpu.models.qwen2 import generate
-from rag_serving_system_tpu.models.weights import init_decoder_params
+from rag_serving_system.models.configs import QWEN2_TINY
+from rag_serving_system.models.qwen2 import generate
+from rag_serving_system.models.weights import init_decoder_params
 
 CFG = QWEN2_TINY
 
@@ -79,8 +79,8 @@ def test_bias_consistent_between_spec_and_sequential(params):
 
 def test_pool_honors_bias():
     """DECODE_MODE=continuous + EOS_BIAS: slots must actually free early."""
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     rng = np.random.default_rng(0)
     docs = [f"doc {i} " + " ".join(f"w{i}t{j}" for j in range(10))

@@ -28,12 +28,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.config import Settings
-from rag_serving_system_tpu.core.engine import RagEngine
-from rag_serving_system_tpu.core.request_queue import RequestQueue
-from rag_serving_system_tpu.models.configs import decoder_config_for
-from rag_serving_system_tpu.models.qwen2 import generate
-from rag_serving_system_tpu.models.weights import init_decoder_params
+from rag_serving_system.config import Settings
+from rag_serving_system.core.engine import RagEngine
+from rag_serving_system.core.request_queue import RequestQueue
+from rag_serving_system.models.configs import decoder_config_for
+from rag_serving_system.models.qwen2 import generate
+from rag_serving_system.models.weights import init_decoder_params
 
 
 def _left_pad(rows, p):
@@ -155,7 +155,7 @@ def _disable_eos(eng):
     import dataclasses
     import types
 
-    from rag_serving_system_tpu.models.qwen2 import eos_id_set
+    from rag_serving_system.models.qwen2 import eos_id_set
 
     v = eng.dec_cfg.vocab_size
     eng.dec_cfg = dataclasses.replace(eng.dec_cfg, eos_token_id=v + 7,
@@ -204,7 +204,7 @@ def test_engine_budget_equals_smaller_cap(corpus):
 
 def test_engine_budget_packed_staging(corpus):
     """Budgets ride the packed (ragged) prefill layout too."""
-    import rag_serving_system_tpu.core.engine as eng_mod
+    import rag_serving_system.core.engine as eng_mod
 
     eng6 = _engine(corpus, packed_prefill=True)
     eng2 = _engine(corpus, packed_prefill=True, max_new_tokens=2)
@@ -272,8 +272,8 @@ def test_queue_payload_carries_optional_budget():
 
 
 def test_api_accepts_and_validates_budget(corpus):
-    from rag_serving_system_tpu.api.endpoints import create_api, ServerThread
-    from rag_serving_system_tpu.core.batch_processor import BatchProcessor
+    from rag_serving_system.api.endpoints import create_api, ServerThread
+    from rag_serving_system.core.batch_processor import BatchProcessor
     import requests as rq
 
     eng6 = _engine(corpus)
@@ -307,11 +307,11 @@ def test_api_accepts_and_validates_budget(corpus):
 def test_native_front_drain_carries_budget():
     """The C front parses max_new_tokens and the drain record delivers it
     (0 = unset → None)."""
-    from rag_serving_system_tpu.native import get_httpfront_lib
+    from rag_serving_system.native import get_httpfront_lib
 
     if get_httpfront_lib() is None:
         pytest.skip("no C++ toolchain for the native front")
-    from rag_serving_system_tpu.api.native_front import NativeFront, FrontQueue
+    from rag_serving_system.api.native_front import NativeFront, FrontQueue
 
     inner = RequestQueue(max_batch_size=8, max_wait_time=0.02)
     nf = NativeFront(inner, port=0).start()
@@ -360,8 +360,8 @@ def test_budget_aware_regrouping_partitions_by_budget():
     budgets) per batch, so mixing a budget-64 row into a budget-8 batch
     costs the whole batch 56 extra steps). Every request still gets its own
     answer, and with uniform budgets the key reduces to the length sort."""
-    from rag_serving_system_tpu.core.batch_processor import BatchProcessor
-    from rag_serving_system_tpu.core.prefix_cache import PromptSpec
+    from rag_serving_system.core.batch_processor import BatchProcessor
+    from rag_serving_system.core.prefix_cache import PromptSpec
 
     groups: list = []
 

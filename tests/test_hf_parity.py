@@ -32,10 +32,10 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from rag_serving_system_tpu.models.configs import DecoderConfig, EncoderConfig
-from rag_serving_system_tpu.models.e5 import encode, encoder_forward
-from rag_serving_system_tpu.models.qwen2 import generate, prefill
-from rag_serving_system_tpu.models.weights import (
+from rag_serving_system.models.configs import DecoderConfig, EncoderConfig
+from rag_serving_system.models.e5 import encode, encoder_forward
+from rag_serving_system.models.qwen2 import generate, prefill
+from rag_serving_system.models.weights import (
     load_decoder_params,
     load_encoder_params,
 )
@@ -259,7 +259,7 @@ def test_llama_decoder_greedy_matches_hf(tmp_path_factory):
     greedy tokens must match HF exactly, including a left-padded batch."""
     from transformers import LlamaConfig, LlamaForCausalLM
 
-    from rag_serving_system_tpu.models.configs import decoder_config_from_hf
+    from rag_serving_system.models.configs import decoder_config_from_hf
 
     hf_cfg = LlamaConfig(
         vocab_size=173, hidden_size=64, num_hidden_layers=3,
@@ -303,7 +303,7 @@ def test_bert_encoder_matches_hf(tmp_path_factory):
     torch <=1e-4 — pins the position_style switch."""
     from transformers import BertConfig, BertModel
 
-    from rag_serving_system_tpu.models.configs import encoder_config_from_hf
+    from rag_serving_system.models.configs import encoder_config_from_hf
 
     hf_cfg = BertConfig(
         vocab_size=191, hidden_size=64, num_hidden_layers=3,
@@ -341,7 +341,7 @@ def test_qwen2_config_from_hf_roundtrip(dec_pair, tmp_path_factory):
     handwritten config (QKV bias on, tied embeddings)."""
     from transformers import Qwen2Config
 
-    from rag_serving_system_tpu.models.configs import decoder_config_from_hf
+    from rag_serving_system.models.configs import decoder_config_from_hf
 
     hf_cfg = Qwen2Config(
         vocab_size=199, hidden_size=64, num_hidden_layers=3,

@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.core.retriever import IvfRetriever, SimpleRetriever
-from rag_serving_system_tpu.ops.ivf import build_ivf, ivf_search
+from rag_serving_system.core.retriever import IvfRetriever, SimpleRetriever
+from rag_serving_system.ops.ivf import build_ivf, ivf_search
 
 
 def clustered_corpus(rng, n_clusters=16, per=64, d=64):
@@ -67,7 +67,7 @@ def test_ivf_interface_edges(rng):
 def test_ivf_small_corpus_clamps_nprobe_and_k(rng):
     """Small corpora build fewer clusters than requested and can have fewer
     candidates than k; both previously crashed lax.top_k."""
-    from rag_serving_system_tpu.core.retriever import IvfRetriever
+    from rag_serving_system.core.retriever import IvfRetriever
 
     docs = [f"doc {i}" for i in range(10)]
     emb = rng.standard_normal((10, 64)).astype(np.float32)
@@ -80,11 +80,11 @@ def test_ivf_small_corpus_clamps_nprobe_and_k(rng):
 
 
 def test_engine_serves_ivf(rng):
-    """RETRIEVER=ivf is env-selectable in the serving engine (VERDICT r3 #5):
+    """RETRIEVER=ivf is env-selectable in the serving engine:
     the engine builds the index, passes the startup recall gate on
     clusterable data, and serves retrieval through ivf_search."""
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     corpus = clustered_corpus(rng, n_clusters=8, per=32, d=64)
     docs = [f"doc {i}" for i in range(corpus.shape[0])]
@@ -107,8 +107,8 @@ def test_engine_serves_ivf(rng):
 def test_engine_ivf_recall_gate_refuses_unclusterable(rng):
     """Uniform random embeddings don't cluster; the startup gate must refuse
     to serve instead of silently degrading recall."""
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     corpus = rng.standard_normal((512, 64)).astype(np.float32)
     docs = [f"doc {i}" for i in range(512)]
@@ -125,8 +125,8 @@ def test_engine_ivf_sentinel_ids_filtered(rng):
     docs at this nprobe); the engine must DROP the sentinels — Python
     negative indexing would silently substitute documents[-1] into the RAG
     context (review finding, round 4)."""
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     # tight clusters, nprobe=1, k > cluster size -> -1 padding is guaranteed
     corpus = clustered_corpus(rng, n_clusters=8, per=4, d=64)
@@ -148,12 +148,11 @@ def test_engine_ivf_sentinel_ids_filtered(rng):
 
 
 def test_engine_packed_t_step_rounds_to_256(rng):
-    """A PACKED_T_STEP that isn't a 256-multiple would silently disable the
-    packed flash kernel (T % 256 != 0 falls back to the O(T^2) reference
-    attention); the engine must round the step up (review finding, round 4)."""
+    """A PACKED_T_STEP that isn't a 256-multiple must be rounded up: packed
+    lengths have to be multiples of the packed kernel's block sizes."""
     import os
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     corpus = rng.standard_normal((16, 64)).astype(np.float32)
     docs = [f"doc {i}" for i in range(16)]

@@ -15,9 +15,9 @@ import time
 
 import pytest
 
-from rag_serving_system_tpu.core.request_queue import RedisRequestQueue
-from rag_serving_system_tpu.native import get_miniredis_path
-from rag_serving_system_tpu.utils.resp import RespClient
+from rag_serving_system.core.request_queue import RedisRequestQueue
+from rag_serving_system.native import get_miniredis_path
+from rag_serving_system.utils.resp import RespClient
 
 
 def _free_port() -> int:
@@ -165,7 +165,7 @@ def test_request_queue_over_real_socket(server):
 
 
 def test_batch_processor_end_to_end_over_miniredis(server):
-    from rag_serving_system_tpu.core.batch_processor import BatchProcessor
+    from rag_serving_system.core.batch_processor import BatchProcessor
 
     class _Engine:
         def prepare(self, queries, ks, budgets=None):
@@ -200,7 +200,7 @@ def test_batch_processor_end_to_end_over_miniredis(server):
 
 import os
 
-from rag_serving_system_tpu.utils.resp import RespError
+from rag_serving_system.utils.resp import RespError
 
 
 @pytest.fixture()

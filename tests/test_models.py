@@ -9,11 +9,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.models.configs import E5_TINY, QWEN2_TINY
-from rag_serving_system_tpu.models.e5 import encode, encoder_forward
-from rag_serving_system_tpu.models.qwen2 import generate, prefill, logits_from_hidden
-from rag_serving_system_tpu.models.weights import init_decoder_params, init_encoder_params
-from rag_serving_system_tpu.models.layers import causal_padding_bias
+from rag_serving_system.models.configs import E5_TINY, QWEN2_TINY
+from rag_serving_system.models.e5 import encode, encoder_forward
+from rag_serving_system.models.qwen2 import generate, prefill, logits_from_hidden
+from rag_serving_system.models.weights import init_decoder_params, init_encoder_params
+from rag_serving_system.models.layers import causal_padding_bias
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +58,7 @@ def test_encoder_pooling_modes(enc_params):
 
 def _naive_greedy(params, cfg, prompt, n_steps):
     """Greedy decode by full re-prefill each step (no KV cache) — oracle."""
-    import rag_serving_system_tpu.models.qwen2 as q
+    import rag_serving_system.models.qwen2 as q
 
     seq = list(map(int, prompt))
     out = []
@@ -181,9 +181,9 @@ def test_generate_stops_on_any_eos_id():
     pad and the early exit must have fired."""
     import dataclasses
 
-    from rag_serving_system_tpu.models.configs import QWEN2_TINY
-    from rag_serving_system_tpu.models.qwen2 import generate
-    from rag_serving_system_tpu.models.weights import init_decoder_params
+    from rag_serving_system.models.configs import QWEN2_TINY
+    from rag_serving_system.models.qwen2 import generate
+    from rag_serving_system.models.weights import init_decoder_params
 
     cfg = dataclasses.replace(QWEN2_TINY, eos_token_ids=tuple(range(512)))
     params = init_decoder_params(cfg, seed=3, dtype=jnp.float32)

@@ -18,8 +18,8 @@ import time
 
 import pytest
 
-from rag_serving_system_tpu.core.request_queue import RequestQueue
-from rag_serving_system_tpu.native import get_httpfront_lib
+from rag_serving_system.core.request_queue import RequestQueue
+from rag_serving_system.native import get_httpfront_lib
 
 pytestmark = pytest.mark.skipif(get_httpfront_lib() is None,
                                 reason="no C++ toolchain for the native front")
@@ -55,7 +55,7 @@ class FakeEngine(threading.Thread):
 @pytest.fixture()
 def front():
     """(port, FrontQueue, NativeFront, FakeEngine) with the engine running."""
-    from rag_serving_system_tpu.api.native_front import NativeFront, FrontQueue
+    from rag_serving_system.api.native_front import NativeFront, FrontQueue
 
     inner = RequestQueue(max_batch_size=8, max_wait_time=0.02)
     nf = NativeFront(inner, port=0).start()
@@ -206,7 +206,7 @@ def test_404(front):
 
 
 def test_backpressure_503():
-    from rag_serving_system_tpu.api.native_front import NativeFront, FrontQueue
+    from rag_serving_system.api.native_front import NativeFront, FrontQueue
 
     inner = RequestQueue(max_batch_size=8, max_wait_time=0.02)
     nf = NativeFront(inner, port=0, max_inflight=2).start()
@@ -312,7 +312,7 @@ def test_foreign_nf_id_routes_to_python_store(front):
 
 
 def test_non_front_ids_still_use_python_store(front):
-    """Results for uuid ids (aiohttp-submitted) keep flowing through the
+    """Results for uuid ids (submitted through the asyncio surface) keep flowing through the
     wrapped queue's result store."""
     port, q, _, _ = front
     rid = q.add_request("via python", 2)
@@ -358,7 +358,7 @@ def test_enqueue_failure_releases_waiter():
     waiter must get a synthetic error completion (not a silent timeout) and
     the C-side inflight counter must return to zero — otherwise repeated
     failures leak capacity toward permanent 503s under a max_inflight cap."""
-    from rag_serving_system_tpu.api.native_front import NativeFront, FrontQueue
+    from rag_serving_system.api.native_front import NativeFront, FrontQueue
 
     class ExplodingQueue(RequestQueue):
         def add_request_with_id(self, rid, query, k):
@@ -384,7 +384,7 @@ def test_enqueue_failure_releases_waiter():
 def test_stats_reset_on_restart():
     """A restarted front must report fresh counters, not the previous
     instance's cumulative stats next to a zeroed inflight."""
-    from rag_serving_system_tpu.api.native_front import NativeFront, FrontQueue
+    from rag_serving_system.api.native_front import NativeFront, FrontQueue
 
     inner = RequestQueue(max_batch_size=8, max_wait_time=0.02)
     nf = NativeFront(inner, port=0).start()

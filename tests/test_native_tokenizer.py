@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from rag_serving_system_tpu.models.tokenizer import HashTokenizer
-from rag_serving_system_tpu.native import get_hashtok_lib
+from rag_serving_system.models.tokenizer import HashTokenizer
+from rag_serving_system.native import get_hashtok_lib
 
 pytestmark = pytest.mark.skipif(get_hashtok_lib() is None,
                                 reason="native lib not built (no cc)")

@@ -2,7 +2,7 @@
 
 The cold no-prefix path packs the batch's real tokens into one (1, T)
 stream (engine `_stage_packed` → models/qwen2.py `prefill_packed` →
-ops/attention.py `flash_attention_packed`), cutting prefill FLOPs from
+ops/attention.py `packed_attention`), cutting prefill FLOPs from
 B*max(len) to sum(len). These tests pin exactness: the packed path must be
 BIT-IDENTICAL to the padded path under greedy decoding."""
 
@@ -14,11 +14,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.models.configs import decoder_config_for
-from rag_serving_system_tpu.models.weights import init_decoder_params
-from rag_serving_system_tpu.models.qwen2 import generate, generate_packed
-from rag_serving_system_tpu.ops.attention import (
-    flash_attention_packed, packed_attention_reference)
+from rag_serving_system.models.configs import decoder_config_for
+from rag_serving_system.models.weights import init_decoder_params
+from rag_serving_system.models.qwen2 import generate, generate_packed
+from rag_serving_system.ops.attention import (
+    packed_attention_pallas, packed_attention_reference)
 
 
 def _pack(rows, t, b_cap, p, pad_id=0):
@@ -41,8 +41,8 @@ def _pack(rows, t, b_cap, p, pad_id=0):
 
 
 def test_packed_kernel_matches_reference():
-    """flash_attention_packed (interpret mode) == jnp block-diagonal oracle
-    on real tokens; pad-region outputs are never consumed."""
+    """The packed Pallas kernel (interpret mode) == jnp block-diagonal
+    oracle on real tokens; pad-region outputs are never consumed."""
     rng = np.random.default_rng(0)
     t, hq, hk, d = 1024, 4, 2, 128
     lens = [300, 150, 260, 200]
@@ -55,9 +55,8 @@ def test_packed_kernel_matches_reference():
     k = (rng.standard_normal((1, t, hk, d)) * 0.1).astype(np.float32)
     v = (rng.standard_normal((1, t, hk, d)) * 0.1).astype(np.float32)
     segj = jnp.asarray(seg)[None]
-    out = flash_attention_packed(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), segj,
-        max_seg_len=512, interpret=jax.default_backend() != "tpu")
+    out = packed_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), segj, interpret=True)
     ref = packed_attention_reference(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), segj)
     np.testing.assert_allclose(np.asarray(out)[0, :off],
@@ -87,10 +86,9 @@ def test_packed_kernel_rows_are_isolated():
     seg[:n0] = 0
     seg[n0:n0 + 300] = 1
     seg[n0 + 300:n0 + 500] = 2
-    packed = flash_attention_packed(
+    packed = packed_attention_pallas(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        jnp.asarray(seg)[None], max_seg_len=512,
-        interpret=jax.default_backend() != "tpu")
+        jnp.asarray(seg)[None], interpret=True)
     np.testing.assert_allclose(np.asarray(packed)[0, :n0],
                                np.asarray(alone)[0, :n0], atol=3e-5)
 
@@ -152,8 +150,8 @@ def corpus():
 
 
 def _engine(corpus, packed: bool):
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     docs, emb = corpus
     s = Settings(model_preset="tiny", batch_buckets=[4], max_batch_size=4,
@@ -188,7 +186,7 @@ def test_engine_packed_margin_gate(corpus):
     prepared = eng.prepare(qs, [2] * 4)
     staged = eng.stage_prompts(prepared)
     # with the margin forced to 0 the gate can never pass -> padded staging
-    import rag_serving_system_tpu.core.engine as eng_mod
+    import rag_serving_system.core.engine as eng_mod
     old = eng_mod.PACKED_MARGIN
     try:
         eng_mod.PACKED_MARGIN = 0.0

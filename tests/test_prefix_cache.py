@@ -11,18 +11,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rag_serving_system_tpu.core.prefix_cache import (
+from rag_serving_system.core.prefix_cache import (
     PrefixKVCache,
     PromptSpec,
     split_prefix_tokens,
 )
-from rag_serving_system_tpu.models.configs import QWEN2_TINY
-from rag_serving_system_tpu.models.qwen2 import (
+from rag_serving_system.models.configs import QWEN2_TINY
+from rag_serving_system.models.qwen2 import (
     compute_prefix_kv,
     generate,
     prefill,
 )
-from rag_serving_system_tpu.models.weights import init_decoder_params
+from rag_serving_system.models.weights import init_decoder_params
 
 
 def _left_pad(rows, width, pad_id=0):
@@ -122,7 +122,7 @@ def test_generate_with_prefix_sampled_shapes(tiny_decoder):
 
 def test_quantize_prefix_kv_error_bound(tiny_decoder):
     """int8 storage: per-(token, head) symmetric quant, |err| <= scale/2."""
-    from rag_serving_system_tpu.models.qwen2 import quantize_prefix_kv
+    from rag_serving_system.models.qwen2 import quantize_prefix_kv
 
     cfg, params = tiny_decoder
     rng = np.random.default_rng(9)
@@ -140,7 +140,7 @@ def test_generate_with_int8_prefix_close_to_exact(tiny_decoder):
     """int8-stored prefix KV: same shapes, near-identical logits/tokens as
     the exact (full-precision) prefix path."""
     cfg, params = tiny_decoder
-    from rag_serving_system_tpu.models.qwen2 import prefill, quantize_prefix_kv
+    from rag_serving_system.models.qwen2 import prefill, quantize_prefix_kv
 
     rng = np.random.default_rng(21)
     pres = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (14, 9)]
@@ -266,8 +266,8 @@ def test_prompt_spec_is_a_string():
 # ---------------------------------------------------------------------------
 
 def _engines():
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     rng = np.random.default_rng(0)
     docs = [(f"Fact number {i}: the answer to the question about topic {i} "
@@ -468,8 +468,8 @@ def test_auto_pool_len_sizes_from_corpus():
     """PREFIX_POOL_LEN unset → the engine sizes the pool from sampled 2-doc
     context prefixes (max, rounded to 128): long-doc corpora get a bigger
     pool than short-doc corpora, and an explicit setting wins."""
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     rng = np.random.default_rng(0)
     emb = rng.standard_normal((20, 64)).astype(np.float32)
@@ -495,7 +495,7 @@ def test_suffix_len_buckets_env_knob():
     """SUFFIX_LEN_BUCKETS is parsed/sorted from the env at import time; the
     default stays [32, 64] and pick_bucket routes a 20-token suffix to the
     tightest configured bucket."""
-    from rag_serving_system_tpu.core import engine as eng
+    from rag_serving_system.core import engine as eng
 
     assert eng.SUFFIX_LEN_BUCKETS == [32, 64]
     buckets = eng._parse_len_buckets("64,24,32")

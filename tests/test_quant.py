@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.models.configs import QWEN2_TINY
-from rag_serving_system_tpu.models.layers import dense
-from rag_serving_system_tpu.models.qwen2 import generate, prefill
-from rag_serving_system_tpu.models.weights import init_decoder_params
-from rag_serving_system_tpu.ops.quant import (
+from rag_serving_system.models.configs import QWEN2_TINY
+from rag_serving_system.models.layers import dense
+from rag_serving_system.models.qwen2 import generate, prefill
+from rag_serving_system.models.weights import init_decoder_params
+from rag_serving_system.ops.quant import (
     QuantizedWeight,
     dequantize,
     quantize_decoder_params,
@@ -68,8 +68,8 @@ def test_quantized_generate_runs_and_tracks_fp():
 
 
 def test_engine_with_int8(rng):
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     docs = [f"Fact {i}." for i in range(20)]
     emb = rng.standard_normal((20, 64)).astype(np.float32)
@@ -85,8 +85,8 @@ def test_engine_with_int8(rng):
 def test_w8a8_dense_matches_f32():
     """W8A8 (per-token act scales x per-channel weight scales) must track the
     f32 matmul within combined quantization error (~1%)."""
-    from rag_serving_system_tpu.models.layers import dense_w8a8
-    from rag_serving_system_tpu.ops.quant import quantize_int8
+    from rag_serving_system.models.layers import dense_w8a8
+    from rag_serving_system.ops.quant import quantize_int8
 
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal((8, 64)), dtype=jnp.float32)
@@ -101,10 +101,10 @@ def test_w8a8_generate_close_to_bf16_path():
     """Greedy decode with W8A8 prefill on a tiny model: prefill logits stay
     close and the top-1 token usually agrees; the contract here is that the
     path runs end-to-end and does not corrupt the cache/positions."""
-    from rag_serving_system_tpu.models.configs import QWEN2_TINY
-    from rag_serving_system_tpu.models.qwen2 import prefill
-    from rag_serving_system_tpu.models.weights import init_decoder_params
-    from rag_serving_system_tpu.ops.quant import quantize_decoder_params
+    from rag_serving_system.models.configs import QWEN2_TINY
+    from rag_serving_system.models.qwen2 import prefill
+    from rag_serving_system.models.weights import init_decoder_params
+    from rag_serving_system.ops.quant import quantize_decoder_params
 
     cfg = QWEN2_TINY
     params = quantize_decoder_params(init_decoder_params(cfg, dtype=jnp.float32))
@@ -122,8 +122,8 @@ def test_engine_serves_with_int8_and_w8a8():
     """The production quant config (QUANT_WEIGHTS=int8 + QUANT_ACT=int8)
     must serve end-to-end: quantized pytree through prefill/decode, pad-row
     handling, detokenize."""
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     rng = np.random.default_rng(0)
     docs = [f"Fact {i}: the answer is {i * i}." for i in range(20)]
@@ -144,7 +144,7 @@ def test_engine_serves_with_int8_and_w8a8():
 # ---------------------------------------------------------------------------
 
 def test_quantize_int4_roundtrip_error(rng):
-    from rag_serving_system_tpu.ops.quant import quantize_int4
+    from rag_serving_system.ops.quant import quantize_int4
 
     w = jnp.asarray(rng.standard_normal((256, 96)).astype(np.float32) * 0.02)
     qw = quantize_int4(w, group=128)
@@ -157,7 +157,7 @@ def test_quantize_int4_roundtrip_error(rng):
 
 
 def test_dense_int4_matches_dequant_oracle(rng):
-    from rag_serving_system_tpu.ops.quant import quantize_int4
+    from rag_serving_system.ops.quant import quantize_int4
 
     x = jnp.asarray(rng.standard_normal((4, 256)).astype(np.float32))
     w = jnp.asarray(rng.standard_normal((256, 64)).astype(np.float32) * 0.02)
@@ -173,8 +173,8 @@ def test_w4a8_dense_tracks_int4_oracle(rng):
     UNquantized f32 matmul, int4 g=128 on gaussian weights is ~12% RMS — the
     intrinsic 4-bit error, which real trained weights tolerate far better
     than white noise does.)"""
-    from rag_serving_system_tpu.models.layers import dense_w8a8
-    from rag_serving_system_tpu.ops.quant import quantize_int4
+    from rag_serving_system.models.layers import dense_w8a8
+    from rag_serving_system.ops.quant import quantize_int4
 
     x = jnp.asarray(rng.standard_normal((8, 256)), dtype=jnp.float32)
     w = jnp.asarray(rng.standard_normal((256, 96)), dtype=jnp.float32)
@@ -186,7 +186,7 @@ def test_w4a8_dense_tracks_int4_oracle(rng):
 
 
 def test_quantize_decoder_params_int4_structure():
-    from rag_serving_system_tpu.ops.quant import QuantizedWeight4
+    from rag_serving_system.ops.quant import QuantizedWeight4
 
     params = init_decoder_params(QWEN2_TINY, dtype=jnp.float32)
     qparams = quantize_decoder_params(params, bits=4)
@@ -216,8 +216,8 @@ def test_int4_generate_runs_and_correlates():
 
 
 def test_engine_serves_with_int4():
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     rng = np.random.default_rng(0)
     docs = [f"Fact {i}: the answer is {i * i}." for i in range(20)]

@@ -7,7 +7,7 @@ import time
 
 import pytest
 
-from rag_serving_system_tpu.core.request_queue import RequestQueue, RedisRequestQueue
+from rag_serving_system.core.request_queue import RequestQueue, RedisRequestQueue
 
 
 def test_batch_is_size_bounded():
@@ -202,7 +202,7 @@ def test_replica_failover_drains_remaining_work(redis_queue):
     popping, so nothing is lost."""
     import threading
 
-    from rag_serving_system_tpu.core.batch_processor import BatchProcessor
+    from rag_serving_system.core.batch_processor import BatchProcessor
 
     class _Engine:
         def prepare(self, queries, ks, budgets=None):
@@ -238,7 +238,7 @@ def test_replica_failover_drains_remaining_work(redis_queue):
 # ---------------------------------------------------------------------------
 
 def test_result_callback_notifies_on_store():
-    from rag_serving_system_tpu.core.request_queue import RequestQueue
+    from rag_serving_system.core.request_queue import RequestQueue
 
     q = RequestQueue()
     rid = q.add_request("hello", 2)
@@ -252,7 +252,7 @@ def test_result_callback_notifies_on_store():
 
 
 def test_result_callback_immediate_when_already_stored():
-    from rag_serving_system_tpu.core.request_queue import RequestQueue
+    from rag_serving_system.core.request_queue import RequestQueue
 
     q = RequestQueue()
     rid = q.add_request("hello", 2)
@@ -263,7 +263,7 @@ def test_result_callback_immediate_when_already_stored():
 
 
 def test_result_callback_cancel():
-    from rag_serving_system_tpu.core.request_queue import RequestQueue
+    from rag_serving_system.core.request_queue import RequestQueue
 
     q = RequestQueue()
     rid = q.add_request("hello", 2)

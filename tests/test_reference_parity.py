@@ -1,29 +1,24 @@
-"""Pin retrieval parity on the reference's REAL SQuAD e5 embeddings.
+"""Pin retrieval parity on the repo's REAL SQuAD e5 embeddings.
 
-Skipped when the reference checkout isn't present (CI elsewhere); in this
-environment it loads /root/reference/data/squad_embeddings.npy READ-ONLY —
-real multilingual-e5-large passage embeddings — and asserts our jnp oracle,
-the Pallas kernel, and the 8-device sharded path return top-k index sets
-IDENTICAL to an independent numpy implementation of the reference CuPy
-retriever's math (reference retriever.py:594-611, 750-769). Exact search on
-identical embeddings ⇒ identical recall, the BASELINE.md north star.
+Loads data/squad_real_embeddings.npy — real multilingual-e5-large passage
+embeddings, imported from the reference's published data artifacts — and
+asserts that the jnp oracle, the serving top-k and the 8-device sharded
+path return top-k index lists IDENTICAL to an independent numpy
+implementation of the reference CuPy retriever's math (reference
+retriever.py:594-611, 750-769). Exact search on identical embeddings ⇒
+identical recall, the BASELINE.md north star.
 """
 
 import os
 
-import pytest
-
-REF_DATA = "/root/reference/data"
-
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(os.path.join(REF_DATA, "squad_embeddings.npy")),
-    reason="reference data artifacts not available")
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "data")
 
 
 def test_topk_index_sets_identical_on_real_squad_embeddings():
     from scripts.reference_parity import run_parity
 
-    report = run_parity(REF_DATA, n_queries=64, k=5)
+    report = run_parity(DATA, n_queries=64, k=5)
     assert report["all_identical"], report
     # exact search: self-retrieval recall@1 must be perfect on both sides
     case = report["cases"]["self_retrieval"]

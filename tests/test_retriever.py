@@ -8,10 +8,10 @@ import os
 import numpy as np
 import pytest
 
-from rag_serving_system_tpu.core.retriever import (
+from rag_serving_system.core.retriever import (
     ShardedRetriever,
     SimpleRetriever,
-    TpuRetriever,
+    ExactRetriever,
 )
 
 DATA_DIR = os.environ.get("RAG_DATA_DIR", "/root/reference/data")
@@ -25,42 +25,42 @@ def corpus(rng_mod=None):
     return emb, docs
 
 
-def test_tpu_matches_simple(corpus):
+def test_exact_matches_simple(corpus):
     emb, docs = corpus
     rng = np.random.default_rng(3)
     queries = rng.standard_normal((8, 128)).astype(np.float32)
     simple = SimpleRetriever(emb, docs)
-    tpu = TpuRetriever(emb, docs, use_pallas=False)
+    exact = ExactRetriever(emb, docs)
     ks = [1, 2, 3, 5, 8, 2, 4, 7]
-    assert tpu.batch_retrieve(queries, ks) == simple.batch_retrieve(queries, ks)
+    assert exact.batch_retrieve(queries, ks) == simple.batch_retrieve(queries, ks)
 
 
 def test_single_retrieve(corpus):
     emb, docs = corpus
     q = np.random.default_rng(5).standard_normal(128).astype(np.float32)
     simple = SimpleRetriever(emb, docs)
-    tpu = TpuRetriever(emb, docs, use_pallas=False)
-    assert tpu.retrieve(q, 5) == simple.retrieve(q, 5)
+    exact = ExactRetriever(emb, docs)
+    assert exact.retrieve(q, 5) == simple.retrieve(q, 5)
 
 
 def test_k_clamped_to_corpus(corpus):
     emb, docs = corpus
-    tpu = TpuRetriever(emb[:3], docs[:3], use_pallas=False)
-    out = tpu.retrieve(np.ones(128, np.float32), k=50)
+    exact = ExactRetriever(emb[:3], docs[:3])
+    out = exact.retrieve(np.ones(128, np.float32), k=50)
     assert len(out) == 3
 
 
 def test_empty_batch_returns_empty(corpus):
     emb, docs = corpus
-    for cls in (TpuRetriever, ShardedRetriever):
-        r = cls(emb, docs, use_pallas=False)
+    for cls in (ExactRetriever, ShardedRetriever):
+        r = cls(emb, docs)
         assert r.batch_retrieve(np.zeros((0, 128), np.float32), []) == []
 
 
 def test_bad_shape_returns_empty(corpus):
     emb, docs = corpus
-    tpu = TpuRetriever(emb, docs, use_pallas=False)
-    out = tpu.batch_retrieve(np.ones((2, 64), np.float32), [2, 2])
+    exact = ExactRetriever(emb, docs)
+    out = exact.batch_retrieve(np.ones((2, 64), np.float32), [2, 2])
     assert out == [[], []]
 
 
@@ -71,7 +71,7 @@ def test_sharded_matches_simple(corpus):
     rng = np.random.default_rng(11)
     queries = rng.standard_normal((4, 128)).astype(np.float32)
     simple = SimpleRetriever(emb, docs)
-    sharded = ShardedRetriever(emb, docs, use_pallas=False)
+    sharded = ShardedRetriever(emb, docs)
     ks = [5, 3, 8, 1]
     assert sharded.batch_retrieve(queries, ks) == simple.batch_retrieve(queries, ks)
 
@@ -81,7 +81,7 @@ def test_sharded_ties_match_single_device():
     # lowest global index, like single-device lax.top_k
     emb = np.tile(np.ones((1, 128), np.float32), (16, 1))
     docs = [f"d{i}" for i in range(16)]
-    sharded = ShardedRetriever(emb, docs, use_pallas=False)
+    sharded = ShardedRetriever(emb, docs)
     out = sharded.retrieve(np.ones(128, np.float32), k=5)
     assert out == ["d0", "d1", "d2", "d3", "d4"]
 
@@ -98,11 +98,11 @@ def test_recall_on_shipped_squad_corpus():
     queries = emb[rng.choice(len(emb), size=16, replace=False)]
     queries = queries + 0.01 * rng.standard_normal(queries.shape).astype(np.float32)
     simple = SimpleRetriever(emb, docs)
-    tpu = TpuRetriever(emb, docs, use_pallas=False)
-    sharded = ShardedRetriever(emb, docs, use_pallas=False)
+    exact = ExactRetriever(emb, docs)
+    sharded = ShardedRetriever(emb, docs)
     ks = [5] * len(queries)
     expected = simple.batch_retrieve(queries, ks)
-    assert tpu.batch_retrieve(queries, ks) == expected
+    assert exact.batch_retrieve(queries, ks) == expected
     assert sharded.batch_retrieve(queries, ks) == expected
 
 
@@ -113,8 +113,8 @@ def test_simple_retriever_tie_break_matches_top_k():
     every score exactly 0 or 1 in BOTH implementations, so the comparison
     tests pure tie-breaking, not float rounding."""
     import jax.numpy as jnp
-    from rag_serving_system_tpu.core.retriever import SimpleRetriever
-    from rag_serving_system_tpu.ops.topk import cosine_topk_reference
+    from rag_serving_system.core.retriever import SimpleRetriever
+    from rag_serving_system.ops.topk import cosine_topk_reference
 
     eye = np.eye(8, dtype=np.float32)
     # docs 0..7 distinct; 8..11 duplicate 0..3; 12..13 duplicate 0..1
@@ -129,7 +129,7 @@ def test_simple_retriever_tie_break_matches_top_k():
 
 
 def test_simple_retriever_empty_and_malformed(rng):
-    from rag_serving_system_tpu.core.retriever import SimpleRetriever
+    from rag_serving_system.core.retriever import SimpleRetriever
 
     empty = SimpleRetriever(np.zeros((0, 16), np.float32), [])
     assert empty.retrieve(rng.standard_normal(16).astype(np.float32), 2) == []
@@ -141,11 +141,11 @@ def test_simple_retriever_empty_and_malformed(rng):
 def test_device_retrievers_clamp_k_to_max_k(rng):
     """A huge requested k must clamp to the compiled max_k width instead of
     compiling an unbounded-k kernel (k-DoS guard at the retriever level)."""
-    from rag_serving_system_tpu.core.retriever import TpuRetriever
+    from rag_serving_system.core.retriever import ExactRetriever
 
     docs = [f"doc {i}" for i in range(50)]
     emb = rng.standard_normal((50, 32)).astype(np.float32)
-    r = TpuRetriever(emb, docs, max_k=4, use_pallas=False)
+    r = ExactRetriever(emb, docs, max_k=4)
     out = r.batch_retrieve(rng.standard_normal((2, 32)).astype(np.float32),
                            [5000, 2])
     assert len(out[0]) == 4 and len(out[1]) == 2

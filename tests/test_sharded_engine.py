@@ -1,15 +1,15 @@
 """End-to-end RagEngine over a multi-device mesh (8 virtual CPU devices):
 exercises the engine's sharded-retrieval branch + TP-shardable params path
-that production v5e-8 serving uses."""
+that multi-card serving uses."""
 
 import numpy as np
 import pytest
 
 import jax
 
-from rag_serving_system_tpu.config import Settings
-from rag_serving_system_tpu.core.engine import RagEngine
-from rag_serving_system_tpu.parallel.mesh import make_mesh
+from rag_serving_system.config import Settings
+from rag_serving_system.core.engine import RagEngine
+from rag_serving_system.parallel.mesh import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -55,8 +55,8 @@ def test_sharded_topk_exact_with_padding_and_negative_sims():
     round 1)."""
     import jax.numpy as jnp
     from jax.sharding import Mesh
-    from rag_serving_system_tpu.ops.topk import cosine_topk_reference
-    from rag_serving_system_tpu.parallel.sharded_topk import (
+    from rag_serving_system.ops.topk import cosine_topk_reference
+    from rag_serving_system.parallel.sharded_topk import (
         shard_corpus, sharded_cosine_topk)
 
     mesh = Mesh(np.asarray(jax.devices()).reshape(4, 2),
@@ -83,7 +83,7 @@ def test_sharded_generation_value_parity(sharded_engine):
     """Greedy tokens from the dp x tp mesh engine must EQUAL the 1-device
     engine's for identical weights/corpus/seed — catches replication and
     collective-placement bugs that shape tests cannot."""
-    from rag_serving_system_tpu.config import Settings
+    from rag_serving_system.config import Settings
     import dataclasses
 
     greedy = dataclasses.replace(
@@ -105,7 +105,7 @@ def test_mesh_shape_variety_value_parity(shape):
     """Retrieval indices must be identical to single-device across mesh
     shapes: pure-dp (8,1), tp-heavy (2,4), and pure-tp (1,8) — catches
     axis-size assumptions in the sharding rules and the top-k merge."""
-    from rag_serving_system_tpu.config import Settings
+    from rag_serving_system.config import Settings
 
     rng = np.random.default_rng(3)
     docs = [f"Fact {i}: item {i} equals {i + 1}." for i in range(50)]
@@ -146,7 +146,7 @@ def test_sharded_prefix_cache_value_parity():
     core/prefix_cache.py): greedy output with the sharded cache — miss pass
     AND hit pass — must equal the single-device engine's, and the cache must
     actually have engaged (entries + hits), not silently bypassed."""
-    from rag_serving_system_tpu.config import Settings
+    from rag_serving_system.config import Settings
 
     rng = np.random.default_rng(5)
     # long docs so the context prefix clears min_tokens and lands in the pool

@@ -6,14 +6,12 @@ effectively exact for these sizes — for every gamma, batch shape, padding
 pattern, EOS placement, per-row budget, and the prefix-KV serving path;
 acceptance only changes how many weight streams the output costs, never the
 output (models/qwen2.py::_spec_decode_loop). bf16 trajectory stability is a
-model-confidence property, measured and documented in PERFORMANCE.md
-"Speculative decode" (random-init logit gaps sit below chunk-vs-step
+model-confidence property (random-init logit gaps sit below chunk-vs-step
 reduction noise; trained checkpoints far above).
 
 The reference has no decode loop of its own (HF pipeline,
-rag_service/core/batch_processor.py:104-105); this feature is how the TPU
-build beats the 1-token weight-streaming roofline in the decode-heavy regime
-(VERDICT r4 next-step #1).
+rag_service/core/batch_processor.py:104-105); this feature is how the
+decode-heavy regime gets past the 1-token weight-streaming bound.
 """
 
 import dataclasses
@@ -24,13 +22,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.models.configs import QWEN2_TINY
-from rag_serving_system_tpu.models.qwen2 import (
+from rag_serving_system.models.configs import QWEN2_TINY
+from rag_serving_system.models.qwen2 import (
     compute_prefix_kv,
     draft_ngram,
     generate,
 )
-from rag_serving_system_tpu.models.weights import init_decoder_params
+from rag_serving_system.models.weights import init_decoder_params
 
 CFG = QWEN2_TINY
 
@@ -183,7 +181,7 @@ def test_spec_accepts_on_repetitive_output(params):
     a repeated bigram gives the drafter instant coverage of any output that
     continues the loop; at minimum the iteration count must never exceed the
     sequential trip count."""
-    from rag_serving_system_tpu.models.qwen2 import _spec_decode_loop, prefill
+    from rag_serving_system.models.qwen2 import _spec_decode_loop, prefill
 
     ids = jnp.asarray(PROMPTS, jnp.int32)
     mask = jnp.ones_like(ids)
@@ -203,8 +201,8 @@ def test_spec_accepts_on_repetitive_output(params):
 # ---------------------------------------------------------------------------
 
 def _mk_engine(spec_gamma, packed, rng):
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     docs = [f"doc {i} " + " ".join(f"w{i}t{j}" for j in range(18))
             for i in range(32)]
@@ -241,8 +239,8 @@ def test_engine_spec_parity_with_budgets():
 
 def test_engine_spec_ignored_when_sampling():
     """DO_SAMPLE=1 + SPEC_DECODE set: the engine must zero the knob."""
-    from rag_serving_system_tpu.config import Settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import Settings
+    from rag_serving_system.core.engine import RagEngine
 
     rng = np.random.default_rng(0)
     docs = [f"d{i} x y z" for i in range(8)]

@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 import requests
 
-from rag_serving_system_tpu.config import Settings
-from rag_serving_system_tpu.core.engine import RagEngine
-from rag_serving_system_tpu.core.batch_processor import BatchProcessor
-from rag_serving_system_tpu.core.request_queue import RequestQueue
-from rag_serving_system_tpu.api.endpoints import create_api, ServerThread
+from rag_serving_system.config import Settings
+from rag_serving_system.core.engine import RagEngine
+from rag_serving_system.core.batch_processor import BatchProcessor
+from rag_serving_system.core.request_queue import RequestQueue
+from rag_serving_system.api.endpoints import create_api, ServerThread
 
 
 @pytest.fixture(scope="module", params=["async_finalize", "sync_finalize"])

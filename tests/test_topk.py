@@ -1,4 +1,4 @@
-"""Pallas fused top-k vs jnp oracle vs numpy (exactness tests).
+"""Serving top-k (GEMM + lax.top_k) vs the jnp oracle vs numpy.
 
 Mirrors the validation role the reference's SimpleRetriever plays for its GPU
 paths (reference: rag_service/core/retriever.py:57-166)."""
@@ -8,9 +8,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.ops.topk import (
+from rag_serving_system.ops.topk import (
+    cosine_topk,
+    cosine_topk_int8,
     cosine_topk_reference,
-    cosine_topk_pallas,
 )
 
 
@@ -38,31 +39,32 @@ def test_reference_matches_numpy(rng, n, d, b, k):
     np.testing.assert_array_equal(np.asarray(idx), np_idx)
 
 
-@pytest.mark.parametrize("n,d,b,k,block_n", [
-    (100, 128, 4, 5, 128),      # tiny corpus, padding within one block
-    (1000, 128, 8, 10, 256),    # multi-block with tail padding
-    (512, 256, 2, 16, 128),     # k larger than usual
-    (300, 128, 32, 5, 128),     # full serving batch
+@pytest.mark.parametrize("n,d,b,k", [
+    (100, 128, 4, 5),       # tiny corpus
+    (1000, 128, 8, 10),     # serving-size corpus
+    (512, 256, 2, 16),      # k larger than usual
+    (300, 128, 32, 5),      # full serving batch
 ])
-def test_pallas_matches_oracle(rng, n, d, b, k, block_n):
+def test_serving_topk_matches_numpy(rng, n, d, b, k):
+    """The float32 serving path must return the numpy oracle's exact index
+    lists (ranked) and its scores."""
     corpus, queries = _make(rng, n, d, b)
-    ref_s, ref_i = cosine_topk_reference(jnp.asarray(corpus), jnp.asarray(queries), k)
-    s, i = cosine_topk_pallas(
-        jnp.asarray(corpus), jnp.asarray(queries), k, block_n=block_n, interpret=True)
-    np.testing.assert_allclose(np.asarray(s), np.asarray(ref_s), rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(i), np.asarray(ref_i))
+    s, i = cosine_topk(jnp.asarray(corpus), jnp.asarray(queries), k)
+    np_s, np_i = _numpy_cosine_topk(corpus.astype(np.float64),
+                                    queries.astype(np.float64), k)
+    np.testing.assert_allclose(np.asarray(s), np_s, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(i), np_i)
 
 
-def test_pallas_ties_resolve_to_lowest_index(rng):
-    # duplicate rows → tied scores; kernel must pick the earliest index,
-    # matching lax.top_k / argsort(stable) semantics.
+def test_topk_ties_resolve_to_lowest_index(rng):
+    # duplicate rows → tied scores; the earliest index must win, matching
+    # lax.top_k / argsort(stable) semantics.
     d = 128
     base = rng.standard_normal((1, d)).astype(np.float32)
     corpus = np.repeat(base, 6, axis=0)
     corpus /= np.linalg.norm(corpus, axis=-1, keepdims=True)
     queries = base.copy()
-    s, i = cosine_topk_pallas(jnp.asarray(corpus), jnp.asarray(queries), 3,
-                              block_n=128, interpret=True)
+    s, i = cosine_topk(jnp.asarray(corpus), jnp.asarray(queries), 3)
     np.testing.assert_array_equal(np.asarray(i)[0], [0, 1, 2])
 
 
@@ -70,41 +72,32 @@ def test_unnormalized_queries_ok(rng):
     corpus, queries = _make(rng, 200, 128, 4)
     queries *= 7.5  # scale must not change cosine ranking
     ref_s, ref_i = cosine_topk_reference(jnp.asarray(corpus), jnp.asarray(queries), 5)
-    s, i = cosine_topk_pallas(jnp.asarray(corpus), jnp.asarray(queries), 5,
-                              block_n=128, interpret=True)
+    s, i = cosine_topk(jnp.asarray(corpus), jnp.asarray(queries), 5)
     np.testing.assert_array_equal(np.asarray(i), np.asarray(ref_i))
 
 
-def test_pallas_bf16_corpus_matches_bf16_oracle():
-    """bf16 corpus streaming: the kernel must produce the same top-k as the
-    f32 oracle evaluated on the bf16-cast corpus (values identical up to
-    f32 accumulation order)."""
+def test_bf16_corpus_matches_bf16_oracle():
+    """bf16 corpus: the serving path must produce the same top-k as the
+    f32 oracle evaluated on the bf16-cast corpus (the query is rounded to
+    bf16 too, so scores agree to bf16 resolution)."""
     rng = np.random.default_rng(11)
     corpus = rng.standard_normal((300, 128)).astype(np.float32)
     corpus /= np.linalg.norm(corpus, axis=-1, keepdims=True)
     queries = rng.standard_normal((4, 128)).astype(np.float32)
     c_bf = jnp.asarray(corpus, dtype=jnp.bfloat16)
-    s, i = cosine_topk_pallas(c_bf, jnp.asarray(queries), 5, interpret=True)
+    s, i = cosine_topk(c_bf, jnp.asarray(queries), 5)
     s_ref, i_ref = cosine_topk_reference(
         c_bf.astype(jnp.float32), jnp.asarray(queries), 5)
     np.testing.assert_array_equal(np.asarray(i), np.asarray(i_ref))
     np.testing.assert_allclose(np.asarray(s), np.asarray(s_ref), atol=2e-3)
 
 
-def test_topk_large_query_batch_shrinks_block(rng):
-    """Large B must shrink the corpus block (B-dependent VMEM buffers grow
-    with the batch) and stay oracle-exact — previously the block budget
-    ignored B and Mosaic could exceed scoped VMEM at serve time."""
-    from rag_serving_system_tpu.ops.topk import (
-        cosine_topk_pallas,
-        cosine_topk_reference,
-    )
-
+def test_topk_large_query_batch(rng):
+    """A query batch far past the serving buckets stays oracle-exact."""
     corpus = rng.standard_normal((700, 256)).astype(np.float32)
     corpus /= np.linalg.norm(corpus, axis=-1, keepdims=True)
     queries = rng.standard_normal((512, 256)).astype(np.float32)
-    got_s, got_i = cosine_topk_pallas(jnp.asarray(corpus), jnp.asarray(queries),
-                                      k=8, interpret=True)
+    got_s, got_i = cosine_topk(jnp.asarray(corpus), jnp.asarray(queries), k=8)
     ref_s, ref_i = cosine_topk_reference(jnp.asarray(corpus),
                                          jnp.asarray(queries), k=8)
     np.testing.assert_array_equal(np.asarray(got_i), np.asarray(ref_i))
@@ -117,7 +110,7 @@ def test_topk_large_query_batch_shrinks_block(rng):
 # ---------------------------------------------------------------------------
 
 def test_int8_quantize_roundtrip():
-    from rag_serving_system_tpu.ops.topk import quantize_corpus_int8
+    from rag_serving_system.ops.topk import quantize_corpus_int8
 
     corpus, _ = _make(np.random.default_rng(3), 200, 128, 1)
     q, s, m = quantize_corpus_int8(jnp.asarray(corpus))
@@ -127,24 +120,21 @@ def test_int8_quantize_roundtrip():
     np.testing.assert_allclose(deq, corpus, atol=np.asarray(s).max() / 2 + 1e-7)
 
 
-@pytest.mark.parametrize("n,d,b,k,block_n", [
-    (300, 128, 4, 5, 256),
-    (1000, 256, 8, 10, 512),
-    (257, 128, 1, 3, 256),     # padding tail + B=1
+@pytest.mark.parametrize("n,d,b,k", [
+    (300, 128, 4, 5),
+    (1000, 256, 8, 10),
+    (257, 128, 1, 3),          # odd corpus size + B=1
 ])
-def test_int8_pallas_high_overlap_with_oracle(n, d, b, k, block_n):
+def test_int8_high_overlap_with_oracle(n, d, b, k):
     """int8 is approximate: assert the top-k SETS nearly match the f32
     oracle (random high-dim corpora have near-ties that may flip). A local
     fixed-seed generator keeps the near-tie structure deterministic — the
     shared session rng's state depends on test order."""
-    from rag_serving_system_tpu.ops.topk import (cosine_topk_pallas_int8,
-                                                 quantize_corpus_int8)
+    from rag_serving_system.ops.topk import quantize_corpus_int8
 
     corpus, queries = _make(np.random.default_rng(n + d), n, d, b)
     cq, cs, cm = quantize_corpus_int8(jnp.asarray(corpus))
-    s, i = cosine_topk_pallas_int8(cq, cs, jnp.asarray(queries), k,
-                                   corpus_mean=cm,
-                                   block_n=block_n, interpret=True)
+    s, i = cosine_topk_int8(cq, cs, jnp.asarray(queries), k, corpus_mean=cm)
     ref_s, ref_i = cosine_topk_reference(jnp.asarray(corpus),
                                          jnp.asarray(queries), k)
     i, ref_i = np.asarray(i), np.asarray(ref_i)
@@ -160,8 +150,7 @@ def test_int8_pallas_high_overlap_with_oracle(n, d, b, k, block_n):
 def test_int8_exact_on_separated_corpus():
     """With well-separated docs (the serving regime — real corpora are not
     isotropic noise) int8 retrieval must be index-exact vs the oracle."""
-    from rag_serving_system_tpu.ops.topk import (cosine_topk_pallas_int8,
-                                                 quantize_corpus_int8)
+    from rag_serving_system.ops.topk import quantize_corpus_int8
 
     rng = np.random.default_rng(42)
     d = 128
@@ -169,8 +158,8 @@ def test_int8_exact_on_separated_corpus():
     corpus /= np.linalg.norm(corpus, axis=-1, keepdims=True)
     queries = corpus[:4] + 0.1 * rng.standard_normal((4, d)).astype(np.float32)
     cq, cs, cm = quantize_corpus_int8(jnp.asarray(corpus))
-    _, i = cosine_topk_pallas_int8(cq, cs, jnp.asarray(queries.astype(np.float32)),
-                                   5, corpus_mean=cm, interpret=True)
+    _, i = cosine_topk_int8(cq, cs, jnp.asarray(queries.astype(np.float32)),
+                            5, corpus_mean=cm)
     _, ref_i = cosine_topk_reference(jnp.asarray(corpus), jnp.asarray(queries), 5)
     i, ref_i = np.asarray(i), np.asarray(ref_i)
     # the retrieved SET must be exact; order within it may swap at the
@@ -191,8 +180,7 @@ def test_int8_recall_on_real_squad_embeddings():
                         "squad_embeddings.npy")
     emb = np.load(path).astype(np.float32)
     emb /= np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
-    from rag_serving_system_tpu.ops.topk import (cosine_topk_pallas_int8,
-                                                 quantize_corpus_int8)
+    from rag_serving_system.ops.topk import quantize_corpus_int8
 
     rng = np.random.default_rng(7)
     sel = rng.choice(emb.shape[0], size=64, replace=False)
@@ -200,8 +188,8 @@ def test_int8_recall_on_real_squad_embeddings():
     noise /= np.linalg.norm(noise, axis=1, keepdims=True)
     queries = emb[sel] + 0.3 * noise
     cq, cs, cm = quantize_corpus_int8(jnp.asarray(emb))
-    s8, i8 = cosine_topk_pallas_int8(cq, cs, jnp.asarray(queries), 5,
-                                     corpus_mean=cm, interpret=True)
+    s8, i8 = cosine_topk_int8(cq, cs, jnp.asarray(queries), 5,
+                              corpus_mean=cm)
     sref, ref = cosine_topk_reference(jnp.asarray(emb), jnp.asarray(queries), 5)
     i8, ref = np.asarray(i8), np.asarray(ref)
     r8 = np.mean([sel[r] in i8[r] for r in range(64)])
@@ -213,27 +201,27 @@ def test_int8_recall_on_real_squad_embeddings():
 
 
 def test_retriever_int8_corpus_dtype():
-    from rag_serving_system_tpu.core.retriever import TpuRetriever
+    from rag_serving_system.core.retriever import ExactRetriever
 
     corpus, queries = _make(np.random.default_rng(5), 120, 64, 3)
     docs = [f"doc {i}" for i in range(120)]
-    r_f32 = TpuRetriever(corpus, docs, use_pallas=False)
-    r_int8 = TpuRetriever(corpus, docs, use_pallas=False, corpus_dtype="int8")
+    r_f32 = ExactRetriever(corpus, docs)
+    r_int8 = ExactRetriever(corpus, docs, corpus_dtype="int8")
     a = r_f32.batch_retrieve(queries, [1, 1, 1])
     b = r_int8.batch_retrieve(queries, [1, 1, 1])
     assert a == b
 
 
 # ---------------------------------------------------------------------------
-# chunked int8 corpus (single-buffer compile-ceiling escape)
+# chunked int8 corpus
 # ---------------------------------------------------------------------------
 
 def test_int8_chunked_matches_single_chunk():
     """Chunk boundaries must be invisible: per-row scales make quantization
     chunk-independent and top-k-of-chunk-top-ks is exact, so a 4-chunk split
     (ragged tail included) returns bit-identical results to one chunk."""
-    from rag_serving_system_tpu.ops.topk import (cosine_topk_int8_chunked,
-                                                 quantize_corpus_int8_chunked)
+    from rag_serving_system.ops.topk import (cosine_topk_int8_chunked,
+                                             quantize_corpus_int8_chunked)
 
     corpus, queries = _make(np.random.default_rng(11), 1000, 128, 4)
     one, m1 = quantize_corpus_int8_chunked(corpus, chunk_rows=10**9)
@@ -242,21 +230,21 @@ def test_int8_chunked_matches_single_chunk():
     assert four[-1][0].shape[0] == 100          # ragged tail
     np.testing.assert_array_equal(np.asarray(m1), np.asarray(m4))
     s1, i1 = cosine_topk_int8_chunked(one, jnp.asarray(queries), 5,
-                                      corpus_mean=m1, interpret=True)
+                                      corpus_mean=m1)
     s4, i4 = cosine_topk_int8_chunked(four, jnp.asarray(queries), 5,
-                                      corpus_mean=m4, interpret=True)
+                                      corpus_mean=m4)
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i4))
     np.testing.assert_allclose(np.asarray(s1), np.asarray(s4), rtol=1e-6)
 
 
 def test_retriever_int8_chunked(monkeypatch):
-    from rag_serving_system_tpu.core.retriever import TpuRetriever
+    from rag_serving_system.core.retriever import ExactRetriever
 
     corpus, queries = _make(np.random.default_rng(5), 120, 64, 3)
     docs = [f"doc {i}" for i in range(120)]
     monkeypatch.setenv("TOPK_CHUNK_ROWS", "50")   # force 3 chunks
-    r_f32 = TpuRetriever(corpus, docs, use_pallas=False)
-    r_int8 = TpuRetriever(corpus, docs, use_pallas=False, corpus_dtype="int8")
+    r_f32 = ExactRetriever(corpus, docs)
+    r_int8 = ExactRetriever(corpus, docs, corpus_dtype="int8")
     assert len(r_int8.corpus_chunks) == 3
     a = r_f32.batch_retrieve(queries, [2, 2, 2])
     b = r_int8.batch_retrieve(queries, [2, 2, 2])
@@ -271,8 +259,8 @@ def test_engine_int8_chunked_corpus(tiny_settings_factory=None):
     import os
     import tempfile
 
-    from rag_serving_system_tpu.config import get_settings
-    from rag_serving_system_tpu.core.engine import RagEngine
+    from rag_serving_system.config import get_settings
+    from rag_serving_system.core.engine import RagEngine
 
     rng = np.random.default_rng(9)
     docs = [f"passage {i}: " + " ".join(f"tok{i}_{j}" for j in range(5))

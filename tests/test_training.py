@@ -7,10 +7,10 @@ import numpy as np
 import optax
 import pytest
 
-from rag_serving_system_tpu.models.configs import E5_TINY
-from rag_serving_system_tpu.models.tokenizer import HashTokenizer
-from rag_serving_system_tpu.models.weights import init_encoder_params
-from rag_serving_system_tpu.training.contrastive import (
+from rag_serving_system.models.configs import E5_TINY
+from rag_serving_system.models.tokenizer import HashTokenizer
+from rag_serving_system.models.weights import init_encoder_params
+from rag_serving_system.training.contrastive import (
     contrastive_loss,
     load_checkpoint,
     make_train_step,

@@ -7,10 +7,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from rag_serving_system_tpu.models.configs import E5_TINY, QWEN2_TINY
-from rag_serving_system_tpu.models.e5 import encoder_forward
-from rag_serving_system_tpu.models.qwen2 import prefill
-from rag_serving_system_tpu.models.weights import (
+from rag_serving_system.models.configs import E5_TINY, QWEN2_TINY
+from rag_serving_system.models.e5 import encoder_forward
+from rag_serving_system.models.qwen2 import prefill
+from rag_serving_system.models.weights import (
     find_snapshot,
     load_decoder_params,
     load_encoder_params,
